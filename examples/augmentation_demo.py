@@ -75,7 +75,7 @@ def main():
     images.append(r.transform(patch))
     titles.append("Reinhard")
 
-    # --- batched functional API (the TPU-first surface) --------------------
+    # --- batched functional API (the throughput surface) --------------------
     key = jax.random.PRNGKey(0)
     batch = jnp.asarray(np.stack([patch] * 4))
     images.append(np.asarray(F.hed_strong(batch, key))[0])

@@ -4,8 +4,8 @@
 Measures the C++ libtiff reader (``tiffreader.cpp``) on a synthetic
 .svs-layout JPEG slide: random rejection sampling (``tf_sample_tiles``, the
 train path) and batched grid decode (``tf_read_regions``, the eval path) at
-STAINLIB_TIFF_THREADS in {1, 2, 4, 8}. On a TPU VM with many cores the
-streaming pipeline is bounded by min(host decode x cores, chip rate); this
+STAINLIB_TIFF_THREADS in {1, 2, 4, 8}. On a host with many cores the
+streaming pipeline is bounded by min(host decode x cores, device rate); this
 table gives the per-core number and the thread-scaling behavior (on a
 single-core host, flat-at-1x proves the handle pool adds no contention
 penalty; real scaling needs real cores).

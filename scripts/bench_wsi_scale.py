@@ -6,7 +6,7 @@ The reference's ``tester`` deployment iterates 100k+ patches per slide
 memmap-canvas deployment story at that scale in anger, not just in the
 unit-tested branch: generate a synthetic H&E .svs whose level-0 exceeds the
 RAM-canvas threshold, push it through ``normalize_slide`` (threaded decode
--> prefetch ring -> fused fixed-matrix kernel -> pyramidal TIFF), and
+-> prefetch ring -> jitted fixed-matrix apply -> pyramidal TIFF), and
 report wall time, steady-state tiles/s, and peak RSS.
 
     python scripts/bench_wsi_scale.py --side 36864   # 144x144 = 20,736 tiles
@@ -71,10 +71,8 @@ def synth_level0(side: int, tile: int, seed: int):
 def run(args):
     import numpy as np
 
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from stainlib_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from stainlib_tpu.data.native import write_tiff_pyramid
     from stainlib_tpu.normalization.slide import normalize_slide
@@ -109,7 +107,7 @@ def run(args):
     wall = time.time() - t0
     peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
-    # Steady-state rate: drop the first 10% of batches (compile + relay
+    # Steady-state rate: drop the first 10% of batches (compile +
     # warm-up), slope over the rest. Degenerate for tiny smokes (< 3
     # batches): fall back to the end-to-end rate.
     n = len(marks)
@@ -121,7 +119,7 @@ def run(args):
     summary = {
         "side": args.side, "tiles": info["tiles"],
         "level0_gb": round(args.side * args.side * 3 / 2**30, 2),
-        "fused": info["fused"], "estimation": info["estimation"],
+        "estimation": info["estimation"],
         "wall_s": round(wall, 1),
         "tiles_per_s_end_to_end": round(info["tiles"] / wall, 1),
         "tiles_per_s_steady": round(steady, 1),

@@ -50,7 +50,7 @@ def main(argv=None) -> int:
                     help="rank-match the slide's GMM classes to the "
                          "template's by usage share before the transfer "
                          "(robust to the OOD class permutation measured in "
-                         "BASELINE.md r4); default = the reference's k->k "
+                         "seg_transfer_demo.py); default = the reference's k->k "
                          "mapping")
     ap.add_argument("--transfer",
                     choices=("diag", "full", "quantile", "rgb-quantile"),
@@ -59,10 +59,10 @@ def main(argv=None) -> int:
                          "(mu, sigma) affine (train_img_horo.py:815); "
                          "'full' = full-covariance Monge maps (EXTENSION, "
                          "rotates chroma); 'quantile' = per-class quantile "
-                         "matching (EXTENSION, non-affine; BASELINE.md r4); "
+                         "matching (EXTENSION, non-affine); "
                          "'rgb-quantile' = quantile matching in float-RGB — "
                          "inverts per-channel scanner tone curves exactly "
-                         "(EXTENSION, BASELINE.md r5)")
+                         "(EXTENSION)")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args(argv)
 
@@ -70,8 +70,8 @@ def main(argv=None) -> int:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from stainlib_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from stainlib_tpu.normalization.slide import flow_normalize_slide
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Measure WHY per-class flow transfer degrades on shifted centers.
 
-The r4 seg-transfer run (BASELINE.md r4) showed the capacity flow losing
+The seg-transfer run (``scripts/seg_transfer_demo.py``) showed the capacity flow losing
 to Macenko at 128^2, with centers 1/3 collapsing to ~0.2 mIoU. The suspect
 mechanism: the capacity trainer sampled ONLY template-center tiles, while
 the reference trains its flow on the full multi-lab cohort
@@ -63,11 +63,11 @@ def parse_args(argv):
 def run(args):
     import jax
 
+    from stainlib_tpu.utils.compile_cache import enable_compile_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    else:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

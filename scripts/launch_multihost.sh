@@ -1,19 +1,19 @@
 #!/usr/bin/env bash
 # Multi-host launch example — the role of the reference's SLURM + mpirun
-# Horovod launcher (dlmodels/color-information/run.sh), TPU-natively.
+# Horovod launcher (dlmodels/color-information/run.sh) on GPU hosts.
 #
-# There is no external communication library to wire up (no NCCL homes, no
-# OpenMPI process maps): every host runs the SAME command; jax.distributed
-# + the TPU runtime form the mesh. On Cloud TPU VMs the coordinator and
-# process ids are discovered automatically and --coordinator can be omitted.
+# One process per host, and that process sees all of its host's GPUs (do
+# not set CUDA_VISIBLE_DEVICES per process): jax.distributed joins the
+# hosts, the mesh spans every GPU, and XLA lowers the collectives to NCCL.
+# Never start two JAX processes on one GPU: each reserves most of the
+# card's memory when it first uses it, so the second one fails.
 #
-# Usage (generic N-host setup, run per host with its rank):
+# Usage (N hosts, run once per host with its rank; the coordinator is
+# host 0 at any free port):
 #   COORDINATOR=host0:8476 NUM_HOSTS=2 HOST_ID=0 ./scripts/launch_multihost.sh
 #   COORDINATOR=host0:8476 NUM_HOSTS=2 HOST_ID=1 ./scripts/launch_multihost.sh
 #
-# Usage (Cloud TPU pod slice; runs the same command on all workers):
-#   gcloud compute tpus tpu-vm ssh $TPU_NAME --worker=all \
-#     --command="cd $REPO && python scripts/train_flow.py --steps 10000 ..."
+# On a single host run it with no variables: one process drives all GPUs.
 set -euo pipefail
 
 : "${COORDINATOR:=}"

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Normalize a whole slide on TPU and write a pyramidal TIFF.
+"""Normalize a whole slide on the accelerator and write a pyramidal TIFF.
 
 The end-to-end deployment loop the reference runs as ``tester`` + per-patch
 CPU normalization (``dlmodels/color-information/data_utils.py:1``,
 ``stainlib/normalization/normalizer.py:39-50``), as one command: threaded
-native decode -> prefetch ring -> fused Pallas normalize -> tiled pyramidal
-TIFF out.
+native decode -> prefetch ring -> jitted normalize -> tiled pyramidal TIFF
+out.
 
     python scripts/normalize_wsi.py slide.svs out.svs --target target.png
     python scripts/normalize_wsi.py slide.svs out.svs --method vahadane \
@@ -58,7 +58,7 @@ def main(argv=None) -> int:
                     choices=["none", "lzw", "jpeg", "deflate"])
     ap.add_argument("--quality", type=int, default=90)
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU functional path")
+                    help="run on the host CPU")
     ap.add_argument("--mesh", type=int, default=0,
                     help="shard tile batches over an N-device mesh "
                          "(scale-out deployment; batch must divide by N)")
@@ -68,7 +68,8 @@ def main(argv=None) -> int:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from stainlib_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from stainlib_tpu.normalization.slide import normalize_slide
 
@@ -101,7 +102,7 @@ def main(argv=None) -> int:
     print(f"{info['width']}x{info['height']} ({info['tiles']} tiles, "
           f"{info['levels']} levels) -> {args.out}")
     print(f"method={info['method']} estimation={info['estimation']} "
-          f"fused={info['fused']}  wall {dt:.1f}s  {rate:.1f} tiles/s "
+          f"wall {dt:.1f}s  {rate:.1f} tiles/s "
           f"end-to-end (decode+normalize+encode)")
     return 0
 

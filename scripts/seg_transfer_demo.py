@@ -59,7 +59,7 @@ def parse_args(argv):
                    help="rank-match GMM classes to the template's by usage "
                         "share before the per-class transfer (robust to the "
                         "class permutation measured on OOD centers, "
-                        "BASELINE.md r4); off = the reference's k->k mapping")
+                        "measured with this script); off = the reference's k->k mapping")
     p.add_argument("--class-match-scope", choices=("batch", "center"),
                    default="batch",
                    help="granularity of --class-match: 'batch' = one perm "
@@ -81,14 +81,14 @@ def parse_args(argv):
                         "'quantile' = per-class quantile matching — "
                         "EXTENSION, closes the measured non-affine "
                         "within-class shifts; 'full-quantile' = Monge "
-                        "rotation then quantile correction (BASELINE.md "
-                        "r4); 'rgb-quantile' = quantile matching on the "
+                        "rotation then quantile correction; "
+                        "'rgb-quantile' = quantile matching on the "
                         "float-RGB rendering — the space where acquisition "
                         "tone curves are per-channel monotone and exactly "
-                        "invertible (BASELINE.md r5); 'rgb-full-quantile' "
+                        "invertible; 'rgb-full-quantile' "
                         "= the composite in RGB — the Monge map absorbs "
                         "per-center linear stain MIXING while the quantile "
-                        "step inverts the tone curves (BASELINE.md r5)")
+                        "step inverts the tone curves")
     p.add_argument("--src-stats", choices=("batch", "image"),
                    default="batch",
                    help="source statistics pooling for the flow transfer: "
@@ -99,8 +99,8 @@ def parse_args(argv):
     p.add_argument("--cohort", default="bl",
                    choices=("bl", "acquisition", "acquisition-clean"),
                    help="synthetic cohort: 'bl' = Beer-Lambert stain shifts "
-                        "(Macenko near-oracle by construction, BASELINE.md "
-                        "r4); 'acquisition' = non-Beer-Lambert per-center "
+                        "(Macenko near-oracle by construction); "
+                        "'acquisition' = non-Beer-Lambert per-center "
                         "scanner chains — the regime the reference's "
                         "published flow>classical ordering claims")
     p.add_argument("--seg-augment", action="store_true",
@@ -113,7 +113,7 @@ def parse_args(argv):
                         "sensor/codec artifacts, which Macenko's rank-2 OD "
                         "reconstruction incidentally removes while "
                         "pixelwise distribution transfers preserve them "
-                        "(BASELINE.md r5 mechanism)")
+                        "(the mechanism this script measures)")
     p.add_argument("--out", default="/tmp/seg_transfer")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true", help="force the CPU backend")
@@ -165,8 +165,8 @@ def _make_normalizers(args, tmpl_tiles, log):
 def _capacity_flow_recolor(args, tmpl_tiles, log):
     """The flow condition from the TRAINED reference-capacity checkpoint
     (502,855 params, ``scripts/train_flow_capacity.py``), deployed exactly
-    like the NMI evaluation that beat the published band (BASELINE.md r3/r4:
-    EMA weights, the reference's ``--ema-val`` swap,
+    like the NMI evaluation that beat the published band (EMA weights,
+    the reference's ``--ema-val`` swap,
     ``train_img_horo.py:668-669``): template stats over the demo's template
     tiles, then per-batch gamma -> per-class HSD transfer. The flow is fully
     convolutional, so the 256-trained weights deploy on ``--size`` tiles."""
@@ -243,7 +243,7 @@ def _make_recolor(args, flow, gmm, cfg, params, spectral, tmpl_tiles):
     the group's tiles and ONE permutation is used for every batch of that
     center (the ``flow_normalize_slide`` slide-level approach) — r4
     measured the default per-BATCH matching flipping identity-ordered
-    batches (BASELINE.md r4: center 1 mIoU 0.93 -> 0.59)."""
+    batches (center 1 mIoU 0.93 -> 0.59)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -384,11 +384,11 @@ def _augment_training_set(tiles_u8, masks, seed):
 def run(args):
     import jax
 
+    from stainlib_tpu.utils.compile_cache import enable_compile_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    elif jax.default_backend() != "cpu":
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    enable_compile_cache()
     import numpy as np
 
     if args.size % (1 << args.seg_depth):

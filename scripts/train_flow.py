@@ -2,10 +2,10 @@
 """CLI: distributed residual-flow + GMM color-normalizer training.
 
 The entry-point role of ``dlmodels/color-information/train_img_horo.py``
-(launched there via SLURM + mpirun, ``run.sh:20-63``). TPU-natively there is
+(launched there via SLURM + mpirun, ``run.sh:20-63``). In JAX there is
 no external launcher: run the same script on every host; ``--coordinator``
 plus the process count bootstraps ``jax.distributed`` and the mesh spans all
-chips (stainlib_tpu/parallel/mesh.py).
+devices (stainlib_tpu/parallel/mesh.py).
 
 Example (single host):
   python scripts/train_flow.py --slides '/data/wsr/*.wsr' --steps 10000 \
@@ -57,7 +57,8 @@ def main(argv=None):
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from stainlib_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

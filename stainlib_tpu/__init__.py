@@ -1,6 +1,6 @@
-"""stainlib_tpu — a TPU-native histopathology stain-processing framework.
+"""stainlib_tpu — a batched JAX histopathology stain-processing framework.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of
+Built from scratch in JAX/XLA with the capabilities of
 ``sebastianffx/stainlib`` (see SURVEY.md): stain normalization (Reinhard,
 Macenko, Vahadane), stain augmentation (HED jitter, grayscale,
 stain-concentration perturbation), luminosity standardization and tissue
@@ -10,7 +10,7 @@ normalization) on sharded JAX collectives.
 
 Two API layers:
   * functional (``stainlib_tpu.ops`` / ``extraction`` / ``normalization`` /
-    ``augmentation``): batched pure functions — the TPU-first surface;
+    ``augmentation``): batched pure functions — the throughput surface;
   * object (``stainlib_tpu.api``, re-exported here): drop-in classes with
     the reference's names and contracts (``stainlib/__init__.py:19-30``).
 """

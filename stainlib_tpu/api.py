@@ -2,9 +2,9 @@
 
 A stainlib user should find every class they use, with the same names,
 constructor signatures and fit/transform (or fit/pop) contracts as
-``stainlib/__init__.py:19-30`` exports — but executing on TPU via the
-batched functional core underneath. Single uint8 numpy images go in and
-come out, exactly like the reference; for throughput, use the functional
+``stainlib/__init__.py:19-30`` exports — but executing on the accelerator
+via the batched functional core underneath. Single uint8 numpy images go in
+and come out, exactly like the reference; for throughput, use the functional
 modules directly on tile batches (these wrappers add one host round trip
 per call by design).
 
@@ -50,43 +50,6 @@ def _require_tissue(I, luminosity_threshold: float = 0.8):
     scalar count keeps the single-image object layer's contract."""
     if int(_mask_count(jnp.asarray(I), luminosity_threshold)) == 0:
         raise TissueMaskException("Empty tissue mask computed")
-
-
-def _use_fused(I) -> bool:
-    """Route single-image calls through the fused Pallas kernels on TPU
-    (identical output within one uint8 step, far faster + cheaper compiles);
-    the functional jnp path covers CPU and lane-unaligned shapes. Images
-    too large for a whole tile to sit in VMEM (the kernels keep the full
-    tile + f32 working set resident; 512x512 is validated) take the tiled
-    route instead — see :func:`_use_tiled`."""
-    n_pixels = I.shape[0] * I.shape[1]
-    return (jax.default_backend() == "tpu"
-            and n_pixels % 128 == 0
-            and n_pixels <= 512 * 512)
-
-
-def _fast_fit_kwargs(I, method: str) -> dict:
-    """Estimation-subsample knobs for the fused route, applied only where
-    their fidelity is PROVEN: at >=256^2 the fs=2 fast configs are
-    validated max-1-uint8 / 0%-over vs the functional path (BASELINE.md r4
-    probe grid; `validate_tpu.py` macenko-fast / vahadane-fast gates pin it
-    on hardware every run). Below 256^2 the measured bound is looser (up to
-    3 u8 on ~15% of 128^2 pixels), so smaller tiles keep the bit-exact
-    full-resolution fit (fit_stride=1)."""
-    if I.shape[0] * I.shape[1] < 256 * 256:
-        return {}
-    return (dict(fit_stride=2, n_bisect=10) if method == "macenko"
-            else dict(fit_stride=2, num_iters=8, n_bisect=10))
-
-
-def _use_tiled(I) -> bool:
-    """Fields beyond the fused kernels' VMEM reach still get a fused apply
-    on TPU: estimate once on the whole field (functional streaming
-    percentiles), apply with the fixed-matrix kernel over 512-square blocks
-    (``extractive.transform_tiled`` — the slide-deployment kernel applied
-    to a single large image, ``normalizer.py:39-50`` semantics)."""
-    return (jax.default_backend() == "tpu"
-            and I.shape[0] * I.shape[1] > 512 * 512)
 
 
 class LuminosityThresholdTissueLocator:
@@ -178,26 +141,8 @@ class ExtractiveStainNormalizer:
         # transform re-estimates the source stain matrix, which raises on
         # an empty tissue mask in the reference (normalizer.py:45).
         _require_tissue(I)
-        if _use_fused(I):
-            from stainlib_tpu.kernels.macenko_fused import macenko_normalize
-            from stainlib_tpu.kernels.vahadane_fused import vahadane_normalize
-
-            fused = (macenko_normalize if self.method == "macenko"
-                     else vahadane_normalize)
-            out = fused(jnp.asarray(I)[None],
-                        self._params.stain_matrix_target,
-                        self._params.max_c_target,
-                        **_fast_fit_kwargs(I, self.method))[0]
-        elif _use_tiled(I):
-            # Estimation rides a grid subsample that keeps >= 256^2 pixels
-            # (the validated fused-tile operating point); the blockwise
-            # apply stays per-pixel exact (BASELINE.md r5 tiled route).
-            out = _extractive.transform_tiled_jit(
-                self._params, jnp.asarray(I), method=self.method,
-                est_stride=_extractive.tiled_est_stride(*I.shape[:2]))
-        else:
-            out = _extractive.transform_jit(self._params, jnp.asarray(I),
-                                            method=self.method)
+        out = _extractive.transform_jit(self._params, jnp.asarray(I),
+                                        method=self.method)
         return np.asarray(out)
 
 
@@ -227,15 +172,8 @@ class ReinhardStainNormalizer:
             # get_tissue_mask, which raises on an empty mask
             # (normalizer.py:85-90).
             _require_tissue(I, luminosity_threshold)
-        if not mask_background and _use_fused(I):
-            from stainlib_tpu.kernels.reinhard_fused import reinhard_normalize
-
-            out = reinhard_normalize(jnp.asarray(I)[None],
-                                     self._params.means,
-                                     self._params.stds)[0]
-        else:
-            out = _reinhard.transform_jit(
-                self._params, jnp.asarray(I), mask_background=mask_background,
-                luminosity_threshold=luminosity_threshold,
-            )
+        out = _reinhard.transform_jit(
+            self._params, jnp.asarray(I), mask_background=mask_background,
+            luminosity_threshold=luminosity_threshold,
+        )
         return np.asarray(out)

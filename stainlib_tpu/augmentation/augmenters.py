@@ -190,36 +190,13 @@ class StainAugmentor:
         ).reshape(-1, 2)
         self.n_stains = 2
         self.tissue_mask = np.asarray(self._params.mask).ravel()
-        # Fit-once/pop-many fused route (augmenter.py:416-448 contract): on
-        # TPU with a VMEM-sized lane-aligned image, cache the device-
-        # resident planar tiles + stain matrix so every pop() is a single
-        # kernel pass. The matrix is the functional fit's own (identical
-        # contract; for Vahadane this skips re-running dictionary learning
-        # per draw — the r2 10.4k -> r3 full-apply-rate pop).
-        self._fused_state = None
-        n_pixels = I.shape[0] * I.shape[1]
-        if (jax.default_backend() == "tpu" and n_pixels % 128 == 0
-                and n_pixels <= 512 * 512):
-            from stainlib_tpu.kernels.fused_stain import to_planar
-
-            self._fused_state = F.FusedStainAugmentState(
-                planar=to_planar(jnp.asarray(I)[None]),
-                stain_matrix=self._params.stain_matrix[None],
-                h=I.shape[0], w=I.shape[1],
-            )
 
     def pop(self):
         if self._params is None:
             raise RuntimeError("Call fit(I) before pop().")
         self._key, k = jax.random.split(self._key)
-        if self._fused_state is not None:
-            out = F.stain_augment_pop_fused(
-                self._fused_state, k, self.sigma1, self.sigma2,
-                self.augment_background,
-            )[0]
-        else:
-            out = F.stain_augment_pop(
-                self._params, k, self.sigma1, self.sigma2,
-                self.augment_background,
-            )
+        out = F.stain_augment_pop(
+            self._params, k, self.sigma1, self.sigma2,
+            self.augment_background,
+        )
         return np.asarray(out)

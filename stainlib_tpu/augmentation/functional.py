@@ -1,6 +1,6 @@
 """Stateless, PRNG-keyed stain/color augmentation kernels.
 
-TPU-native re-design of ``stainlib/augmentation/augmenter.py`` and the DANN
+Batched JAX re-design of ``stainlib/augmentation/augmenter.py`` and the DANN
 RGB jitter (``dlmodels/stain_adversarial_learning/utils/utils_patches.py:
 33-50``). The reference mutates global ``np.random`` state between
 ``randomize()``/``transform()`` (or draws inside ``pop()``); here every
@@ -182,143 +182,11 @@ def stain_augment_pop(
     return reconstruct(C_aug, params.stain_matrix[..., None, None, :, :])
 
 
-class FusedStainAugmentState(NamedTuple):
-    """Device-resident fit-once/pop-many state for the fused kernels: the
-    planar uint8 tiles plus their per-tile 2x3 stain matrices. The heavy
-    estimation (Vahadane in-VMEM dictionary learning / Macenko eigh +
-    angular percentiles) runs ONCE at fit; every ``pop`` is then a single
-    lasso+perturb+reconstruct kernel pass (the reference's
-    fit-once/pop-many contract, ``augmenter.py:416-448``)."""
-
-    planar: jnp.ndarray  # (B, 3, R, 128) uint8
-    stain_matrix: jnp.ndarray  # (B, 2, 3)
-    h: int
-    w: int
-
-
-def stain_augment_fit_fused(rgb, method: str = "macenko",
-                            luminosity_threshold: float = 0.8,
-                            interpret: bool = False) -> FusedStainAugmentState:
-    """Fused fit: estimate per-tile stain matrices once and keep the tiles
-    device-resident in planar layout. ``rgb``: (B, H, W, 3) uint8,
-    lane-aligned (H*W % 128 == 0), whole tile must fit VMEM (<= 512^2)."""
-    from stainlib_tpu.kernels.fused_stain import to_planar
-    from stainlib_tpu.kernels.vahadane_fused import vahadane_stain_matrix_planar
-    from stainlib_tpu.ops.dictlearn import _HE_INIT
-
-    rgb = jnp.asarray(rgb)
-    if rgb.dtype != jnp.uint8:
-        rgb = to_uint8(rgb)
-    B, H, W, _ = rgb.shape
-    planar = to_planar(rgb)
-    if method.lower() == "vahadane":
-        M = vahadane_stain_matrix_planar(
-            planar, luminosity_threshold=luminosity_threshold,
-            interpret=interpret)
-        prior = jnp.broadcast_to(jnp.asarray(_HE_INIT, jnp.float32), M.shape)
-        M = jnp.where(jnp.isnan(M), prior, M)
-    else:
-        M = _EXTRACTORS[method.lower()](rgb,
-                                        luminosity_threshold=luminosity_threshold)
-    return FusedStainAugmentState(planar=planar, stain_matrix=M, h=H, w=W)
-
-
-def stain_augment_pop_fused(state: FusedStainAugmentState, key,
-                            sigma1: float = 0.2, sigma2: float = 0.2,
-                            augment_background: bool = False,
-                            interpret: bool = False):
-    """One augmented draw from fused fit state: a single kernel pass (lasso
-    + tissue-gated C*alpha+beta + reconstruction through the cached stain
-    matrix). Same per-image draw semantics as ``stain_augment_pop``."""
-    from stainlib_tpu.kernels.fused_stain import from_planar
-    from stainlib_tpu.kernels.macenko_fused import augment_with_matrix_planar
-
-    B = state.planar.shape[0]
-    k_a, k_b = jax.random.split(key)
-    alpha = jax.random.uniform(k_a, (B, 2), jnp.float32,
-                               1.0 - sigma1, 1.0 + sigma1)
-    beta = jax.random.uniform(k_b, (B, 2), jnp.float32, -sigma2, sigma2)
-    out = augment_with_matrix_planar(
-        state.planar, state.stain_matrix, alpha, beta,
-        augment_background=augment_background, interpret=interpret)
-    return from_planar(out, state.h, state.w)
-
-
 def stain_augment(rgb, key, method: str = "macenko", sigma1: float = 0.2,
                   sigma2: float = 0.2, augment_background: bool = False):
-    """fit + one pop in a single fused call (for in-loop training augment).
-
-    On TPU, lane-aligned VMEM-sized macenko/vahadane batches route through
-    the fused Pallas kernels (``kernels.macenko_fused.macenko_augment`` /
-    ``kernels.vahadane_fused.vahadane_augment``: in-kernel estimation +
-    lasso + tissue-gated perturbation, ~7-10x the functional path). The
-    per-image alpha/beta draws for a given key are identical on both
-    routes, but the *pixels* are not bitwise equal: the fused kernels'
-    bisection percentiles and scalarized solvers differ from the
-    functional path by up to ~4 uint8 steps on ~1% of pixels, so results
-    are backend- and shape-dependent. Pipelines that need bitwise-stable
-    output across backends should call ``stain_augment_fit`` +
-    ``stain_augment_pop`` directly (always the functional route)."""
-    rgb = jnp.asarray(rgb)
-    lead = jnp.shape(rgb)[:-3]
-    n_pixels = rgb.shape[-3] * rgb.shape[-2]
-    if (method.lower() in ("macenko", "vahadane") and len(lead) <= 1
-            and jax.default_backend() == "tpu"
-            and n_pixels % 128 == 0 and n_pixels <= 512 * 512):
-        from stainlib_tpu.kernels.macenko_fused import macenko_augment
-        from stainlib_tpu.kernels.vahadane_fused import vahadane_augment
-
-        fused = (macenko_augment if method.lower() == "macenko"
-                 else vahadane_augment)
-        k_a, k_b = jax.random.split(key)
-        alpha = jax.random.uniform(k_a, lead + (2,), jnp.float32,
-                                   1.0 - sigma1, 1.0 + sigma1)
-        beta = jax.random.uniform(k_b, lead + (2,), jnp.float32,
-                                  -sigma2, sigma2)
-        batch = rgb if lead else rgb[None]
-        if batch.dtype != jnp.uint8:
-            batch = to_uint8(batch)
-        out = fused(batch, alpha.reshape(-1, 2), beta.reshape(-1, 2),
-                    augment_background=augment_background)
-        return out if lead else out[0]
-    if (method.lower() in ("macenko", "vahadane") and len(lead) <= 1
-            and jax.default_backend() == "tpu"
-            and n_pixels > 512 * 512):
-        # Fields beyond the fused kernels' VMEM reach: estimate the stain
-        # matrix ONCE on the whole field (functional path, streaming
-        # percentiles), then run the perturb+reconstruct apply — which is
-        # purely per-pixel — through the fused fixed-matrix kernel over
-        # 512-square blocks (white padding cropped back off).
-        from stainlib_tpu.kernels.fused_stain import (
-            blockify, from_planar, to_planar, unblockify)
-        from stainlib_tpu.kernels.macenko_fused import (
-            augment_with_matrix_planar)
-
-        batch = rgb if lead else rgb[None]
-        if batch.dtype != jnp.uint8:
-            batch = to_uint8(batch)
-        B, H, W, _ = batch.shape
-        M = _EXTRACTORS[method.lower()](batch)
-        # All-background fields extract NaN rows; fall back to the Ruifrok
-        # prior so the reconstruction passes the field through (the same
-        # guard as stain_augment_fit above).
-        prior = jnp.broadcast_to(jnp.asarray(_HE_INIT, jnp.float32), M.shape)
-        M = jnp.where(jnp.isnan(M), prior, M)
-        k_a, k_b = jax.random.split(key)
-        alpha = jax.random.uniform(k_a, lead + (2,), jnp.float32,
-                                   1.0 - sigma1, 1.0 + sigma1).reshape(-1, 2)
-        beta = jax.random.uniform(k_b, lead + (2,), jnp.float32,
-                                  -sigma2, sigma2).reshape(-1, 2)
-        blocks, grid = blockify(batch, 512)
-        per_img = grid[0] * grid[1]
-        out = augment_with_matrix_planar(
-            to_planar(blocks),
-            jnp.repeat(M.reshape(B, 6), per_img, axis=0),
-            jnp.repeat(alpha, per_img, axis=0),
-            jnp.repeat(beta, per_img, axis=0),
-            augment_background=augment_background)
-        out = unblockify(from_planar(out, 512, 512), grid, H, W)
-        return out if lead else out[0]
+    """fit + one pop in one call (for in-loop training augment); identical,
+    bit for bit, to ``stain_augment_fit`` followed by ``stain_augment_pop``
+    with the same key."""
     params = stain_augment_fit(rgb, method)
     return stain_augment_pop(params, key, sigma1, sigma2, augment_background)
 

@@ -1,6 +1,6 @@
 """Batched geometric augmentation: homography-composed affine warps.
 
-TPU-native re-design of the DANN pipeline's Keras-style geometric
+Batched JAX re-design of the DANN pipeline's Keras-style geometric
 augmentation (``dlmodels/stain_adversarial_learning/utils/keras_utils.py:
 40-158``): per-sample rotation / shift / shear / zoom composed as one
 center-offset affine homography, applied with bilinear sampling (nearest
@@ -49,14 +49,17 @@ def _affine_params(key, h, w, rotation_range, width_shift_range,
     shear_m = jnp.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
     shear_m = shear_m.at[0, 1].set(-jnp.sin(shear)).at[1, 1].set(jnp.cos(shear))
     zoom = jnp.diag(jnp.array([1.0, 1.0, 1.0])).at[0, 0].set(zx).at[1, 1].set(zy)
-    m = rotation @ shift @ shear_m @ zoom
+    # Full-precision 3x3 products: a TF32 product on a GPU would shift the
+    # sampling grid by up to ~1e-3 of the image size.
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    m = mm(mm(mm(rotation, shift), shear_m), zoom)
 
     # Offset so the transform is about the image center
     # (image.transform_matrix_offset_center).
     ox, oy = h / 2.0 - 0.5, w / 2.0 - 0.5
     offset = jnp.array([[1.0, 0.0, ox], [0.0, 1.0, oy], [0.0, 0.0, 1.0]])
     reset = jnp.array([[1.0, 0.0, -ox], [0.0, 1.0, -oy], [0.0, 0.0, 1.0]])
-    return offset @ m @ reset
+    return mm(mm(offset, m), reset)
 
 
 def _warp_one(img, matrix):

@@ -1,7 +1,7 @@
 """HSV color jitter, PRNG-keyed and batched.
 
-BASELINE.json config #3 pairs "HED-light/strong + HSV jitter" as the
-in-training-loop augmentation batch; the HSV family (hue rotation,
+The reference's augmentation study pairs "HED-light/strong + HSV jitter" as
+the in-training-loop augmentation batch; the HSV family (hue rotation,
 saturation/value scaling — the 'HSV-light/strong' augmenters of Tellez et
 al. 2019, the paper stainlib credits at ``stainlib/__init__.py:7-8``)
 complements the grayscale augmenter (``augmenter.py:374-401``). Pure jnp

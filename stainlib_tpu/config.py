@@ -49,7 +49,9 @@ class AugmentConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """Device-mesh shape; first axis is the slowest (DCN) one."""
+    """Device-mesh shape. Within a host the GPUs are joined all to all by
+    NVLink, so the axes follow the algorithm alone; across hosts the first
+    axis is the one that crosses hosts."""
 
     data: Optional[int] = None  # None -> all devices
     tiles: int = 1

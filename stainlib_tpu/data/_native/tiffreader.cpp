@@ -83,7 +83,7 @@ bool set_level(TIFF* t, const LevelInfo& lv) {
 
 int thread_count() {
   // STAINLIB_TIFF_THREADS overrides the decode-thread count: used by the
-  // host-scaling benchmark and to cap threads on shared TPU-VM hosts.
+  // host-scaling benchmark and to cap threads on shared hosts.
   const char* env = std::getenv("STAINLIB_TIFF_THREADS");
   if (env != nullptr) {
     int v = std::atoi(env);

@@ -1,6 +1,6 @@
 // Native host-side tile pipeline for stainlib_tpu.
 //
-// Role: the TPU-native equivalent of the reference's native data plumbing —
+// Role: the batched equivalent of the reference's native data plumbing —
 // OpenSlide/PyVips region decode + OpenCV HSV/morphology tissue detection in
 // the WSI sampler (dlmodels/color-information/data_utils.py:1, class
 // make_dataset) — re-designed as a small self-contained C++ library over
@@ -12,10 +12,7 @@
 //     rejection quotas (tr_sample_tiles — the trainer-mode rejection rules
 //     of data_utils.py:1: background mean>white_thresh or stddev<15),
 //   * HSV in-range tissue mask + separable box close/open morphology
-//     (tr_tissue_mask — the get_bb ROI detection: 50x50 close, 30x30 open),
-//   * batched HWC->planar uint8 repack (tr_pack_planar) so the device-side
-//     Pallas kernel receives lane-aligned planes without an on-device
-//     transpose.
+//     (tr_tissue_mask — the get_bb ROI detection: 50x50 close, 30x30 open).
 //
 // Exposed as a C ABI for ctypes; no external dependencies.
 
@@ -388,25 +385,6 @@ int tr_tissue_mask(const uint8_t* rgb, int w, int h, int h_lo, int h_hi,
   box_morph(mask, w, h, k_close, /*dilate=*/false);
   box_morph(mask, w, h, k_open, /*dilate=*/false);
   box_morph(mask, w, h, k_open, /*dilate=*/true);
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// Batch repack: (B, H, W, 3) uint8 -> (B, 3, H*W) planar
-// ---------------------------------------------------------------------------
-
-int tr_pack_planar(const uint8_t* in, uint8_t* out, int64_t b, int64_t h,
-                   int64_t w) {
-  int64_t n = h * w;
-  parallel_for(b, [&](int64_t i) {
-    const uint8_t* src = in + i * n * 3;
-    uint8_t* dst = out + i * n * 3;
-    for (int64_t p = 0; p < n; ++p) {
-      dst[p] = src[p * 3];
-      dst[n + p] = src[p * 3 + 1];
-      dst[2 * n + p] = src[p * 3 + 2];
-    }
-  });
   return 0;
 }
 

@@ -96,11 +96,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p,
         ]
         lib.tr_tissue_mask.restype = ctypes.c_int
-        lib.tr_pack_planar.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ]
-        lib.tr_pack_planar.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -520,21 +515,3 @@ def tissue_mask_hsv(rgb: np.ndarray, h_range=(120, 180), s_range=(20, 255),
     m = cv.morphologyEx(m, cv.MORPH_CLOSE, np.ones((k_close, k_close), np.uint8))
     m = cv.morphologyEx(m, cv.MORPH_OPEN, np.ones((k_open, k_open), np.uint8))
     return m.astype(bool)
-
-
-def pack_planar(batch: np.ndarray) -> np.ndarray:
-    """(B, H, W, 3) uint8 -> (B, 3, H*W//128, 128): the host-side repack that
-    feeds the fused Pallas kernel without an on-device transpose."""
-    b, h, w, _ = batch.shape
-    out = np.empty((b, 3, h * w), np.uint8)
-    lib = get_lib()
-    batch = np.ascontiguousarray(batch)
-    if lib is not None:
-        lib.tr_pack_planar(
-            batch.ctypes.data_as(ctypes.c_void_p),
-            out.ctypes.data_as(ctypes.c_void_p), b, h, w,
-        )
-    else:
-        out[:] = batch.transpose(0, 3, 1, 2).reshape(b, 3, h * w)
-    assert (h * w) % 128 == 0
-    return out.reshape(b, 3, (h * w) // 128, 128)

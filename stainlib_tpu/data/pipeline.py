@@ -1,11 +1,11 @@
 """Multi-buffered host -> device feeding.
 
 The reference hides host latency behind torch DataLoader workers
-(``train_img_horo.py:292-302``); TPU-natively the equivalent is a prefetch
+(``train_img_horo.py:292-302``); in JAX the equivalent is a prefetch
 ring: background threads pull host batches (from any iterator, e.g.
 :class:`stainlib_tpu.data.wsi.WsiSampler`), optionally transform them on the
-host (e.g. ``native.pack_planar``), and ``jax.device_put`` them ahead of the
-consumer so the chip never waits on the host (SURVEY.md section 7 step 7).
+host, and ``jax.device_put`` them ahead of the consumer so the device never
+waits on the host (SURVEY.md section 7 step 7).
 
 With ``workers > 1`` several host batches are sampled/transferred
 concurrently (each `device_put` is an independent in-flight DMA), which

@@ -44,8 +44,8 @@ N_CENTERS = len(_CENTERS)
 #
 # Round 4 measured that on the `_CENTERS` cohort Macenko is near-oracle BY
 # CONSTRUCTION: the tiles are generated by per-center stain matrices x gain x
-# illumination — exactly the model Macenko inverts (BASELINE.md r4 "Why the
-# gap cannot close"). The reference's claim for the learned flow is the
+# illumination — exactly the model Macenko inverts (which is why Macenko is
+# near-oracle on it in ``scripts/seg_transfer_demo.py``). The reference's claim for the learned flow is the
 # opposite regime: real inter-lab variation is dominated by ACQUISITION
 # effects — scanner response curves, sensor saturation, compression, focus —
 # that are not Beer-Lambert-affine (``dlmodels/color-information/README.md``
@@ -187,7 +187,7 @@ def center_tiles_with_masks(center: int, n: int, h: int = 32, w: int = 32,
     chains with the information-DESTROYING stages removed (no defocus, no
     sensor noise, no JPEG; tone curves and chroma saturation kept) — the
     mechanism probe separating invertible color variation from degradation
-    no color map can undo (BASELINE.md r5). The acquisition chain draws its
+    no color map can undo (``scripts/seg_transfer_demo.py``). The acquisition chain draws its
     noise from a SEPARATE stream, so masks (and the underlying tissue
     fields) are bit-identical across cohorts for the same arguments."""
     if cohort not in COHORTS:
@@ -233,7 +233,7 @@ def stain_domain_task(n: int, seed: int = 0, correlation: float = 0.95,
     The tint cue of :func:`two_domain_task` is linearly readable from every
     pixel — far stronger than real inter-lab stain variation, and at
     224x224/MobileNet capacity it defeats gradient reversal outright
-    (BASELINE.md round-3 boundary measurement). Here the domains differ
+    (``scripts/train_dann_capacity.py``). Here the domains differ
     only by hue-rotated H&E vectors (equal concentration gain and
     illumination — matched brightness), the way the synthetic CAMELYON17
     centers differ (``_CENTERS``); the task is stripe orientation

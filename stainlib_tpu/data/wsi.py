@@ -1,6 +1,6 @@
 """Whole-slide-image streaming sampler.
 
-TPU-native re-design of the reference's "SurfSampler" (``dlmodels/
+Batched re-design of the reference's "SurfSampler" (``dlmodels/
 color-information/data_utils.py:1``, class ``make_dataset``): glob WSIs and
 annotation files, match them by name similarity, shard slides per worker,
 detect tissue ROIs on a downsampled level (HSV in-range + close/open

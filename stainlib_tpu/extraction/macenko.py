@@ -1,6 +1,6 @@
 """Macenko stain-matrix estimation, batched and jit-compiled.
 
-TPU-native re-design of ``stainlib/extraction/macenko_stain_extractor.py:5-44``
+Batched JAX re-design of ``stainlib/extraction/macenko_stain_extractor.py:5-44``
 (M. Macenko et al., 'A method for normalizing histology slides for
 quantitative analysis'): tissue-masked OD covariance -> closed-form 3x3
 eigenvectors -> angular percentiles -> two extreme stain vectors -> H-first

@@ -1,6 +1,6 @@
 """Vahadane stain-matrix estimation via jit-compiled dictionary learning.
 
-TPU-native re-design of ``stainlib/extraction/vahadane_stain_extractor.py:
+Batched JAX re-design of ``stainlib/extraction/vahadane_stain_extractor.py:
 16-43`` (A. Vahadane et al., 'Structure-Preserving Color Normalization and
 Sparse Stain Separation for Histological Images'): tissue-masked OD -> sparse
 non-negative dictionary learning (K=2, lambda=0.1) -> H-first ordering ->
@@ -36,7 +36,7 @@ def stain_matrix_vahadane(
         derive it from the Macenko estimate — it sits close enough to the
         Vahadane optimum that ~12 alternations replace the ~30 the fixed
         Ruifrok-Johnston prior (init=None) needs, converging to the SAME
-        fixed point (study in BASELINE.md).
+        fixed point.
 
     Returns:
       (..., 2, 3) row-normalized stain matrix, H first

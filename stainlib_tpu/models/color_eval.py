@@ -1,6 +1,6 @@
 """Color-normalization deployment: template transfer + NMI metrics.
 
-TPU-native counterparts of the missing ``lib.image_transforms`` deployment
+JAX counterparts of the missing ``lib.image_transforms`` deployment
 path and the metric block of ``train_img_horo.py:658-930``:
 
 * per-class HSD color statistics under GMM responsibilities (the template
@@ -52,7 +52,7 @@ def image_dist_transform(hsd, gamma, mu_src, sigma_src, mu_tmpl, sigma_tmpl,
     ``perm[k]``'s statistics instead of class k's. The reference maps k -> k
     unconditionally (``train_img_horo.py:815,1015``), which breaks when the
     GMM's class labelling permutes on out-of-distribution centers (measured
-    in BASELINE.md r4 "Segmentation transfer"); pass the output of
+    by ``scripts/seg_transfer_demo.py``); pass the output of
     :func:`match_classes_by_usage` to deploy permutation-robustly.
     """
     if perm is not None:
@@ -72,8 +72,8 @@ def class_color_cov(hsd, gamma, eps: float = 1e-6):
     EXTENSION over the reference's (mu, sigma) accumulation
     (``train_img_horo.py:703-727`` keeps per-channel seconds moments only):
     the cross-channel terms carry the chroma ORIENTATION of each tissue
-    class, which the diagonal transfer cannot move (measured in BASELINE.md
-    r4 "Segmentation transfer" — hue-rotated centers).
+    class, which the diagonal transfer cannot move (measured by
+    ``scripts/seg_transfer_demo.py`` on hue-rotated centers).
     """
     w = jnp.asarray(gamma, jnp.float32)
     x = jnp.asarray(hsd, jnp.float32)
@@ -142,7 +142,7 @@ def class_channel_quantiles(hsd, gamma, n_points: int = 33,
     EXTENSION beyond the reference's two-moment accumulation
     (``train_img_horo.py:703-727``): the full quantile curve captures the
     NON-AFFINE within-class shifts measured on the synthetic cohort's hard
-    centers (BASELINE.md r4 — Q-Q affine residual up to 0.91 of the
+    centers (``scripts/seg_transfer_demo.py`` — Q-Q affine residual up to 0.91 of the
     template spread, which bounds every affine transfer).
 
     Classes with little mass are shrunk toward the GLOBAL (class-agnostic)
@@ -193,8 +193,8 @@ def image_dist_transform_quantile(hsd, gamma, q_src, q_tmpl, perm=None,
     RGB in [0, 255] and matches the RGB channels directly. Acquisition-layer
     distortions (scanner tone curves) are monotone PER RGB CHANNEL
     (``data/synthetic.py::_filmic``), which is non-separable after the HSD
-    mix — RGB-space matching inverts them exactly; measured in BASELINE.md
-    r5 "Acquisition cohort"."""
+    mix — RGB-space matching inverts them exactly; measured on the
+    acquisition cohort by ``scripts/seg_transfer_demo.py``."""
     if space not in ("hsd", "rgb"):
         raise ValueError(f"space must be 'hsd' or 'rgb', got {space!r}")
     if perm is not None:
@@ -211,7 +211,7 @@ def image_dist_transform_quantile(hsd, gamma, q_src, q_tmpl, perm=None,
     # Gamma-weighted sum accumulated class by class: interp's gather blocks
     # XLA from fusing a stacked (K,B,H,W,3) vmap output, which at deploy
     # batch sizes (64 x 256^2, K=8 -> ~1.6 GB) pressures HBM on the slide
-    # path; the scan keeps one (B,H,W,3) map live per step (ADVICE r4).
+    # path; the scan keeps one (B,H,W,3) map live per step.
     def body(acc, xs):
         qs_k, qt_k, g_k = xs
         return acc + g_k[..., None] * map_class(qs_k, qt_k), None
@@ -230,7 +230,7 @@ def image_dist_transform_full_quantile(hsd, gamma, mu_src, cov_src,
                                        perm=None, space: str = "hsd"):
     """Composite per-class transfer (EXTENSION): Monge rotation first, then
     per-channel quantile matching of the rotated values onto the template's
-    curves — fixes both failure modes measured in BASELINE.md r4 (chroma
+    curves — fixes both failure modes measured by ``scripts/seg_transfer_demo.py`` (chroma
     rotation, which per-channel maps cannot produce, and non-affine
     marginal shifts, which affine maps cannot close). Same contract as
     :func:`image_dist_transform`.
@@ -238,7 +238,7 @@ def image_dist_transform_full_quantile(hsd, gamma, mu_src, cov_src,
     ``space`` as in :func:`image_dist_transform_quantile`: with ``"rgb"``,
     ``hsd`` and every statistic are float RGB in [0, 255] and no HSD->RGB
     conversion is applied on output. The RGB composite is the natural fit
-    for acquisition-style variation (BASELINE.md r5): per-center stain
+    for acquisition-style variation (``scripts/seg_transfer_demo.py``): per-center stain
     MIXING is linear in OD/RGB (the Monge map absorbs it per class) while
     scanner tone curves are per-RGB-channel monotone (the quantile
     correction inverts them)."""
@@ -281,7 +281,7 @@ def image_dist_transform_full_quantile(hsd, gamma, mu_src, cov_src,
     # One class per scan step: rotate, estimate the rotated curve, match
     # it onto the template's, accumulate the gamma-weighted map. Keeps the
     # peak intermediate at (B,H,W,3) instead of the (B,H,W,K,3) Monge
-    # stack + (K,B,H,W,3) vmap output of the r4 version (ADVICE r4).
+    # stack + (K,B,H,W,3) vmap output of a vmapped version.
     def body(acc, xs):
         mu_s_k, A_k, mu_t_k, qt_k, g_k = xs
         y_k = jnp.einsum("bhwc,dc->bhwd", x - mu_s_k, A_k,
@@ -300,7 +300,7 @@ def image_dist_transform_full_quantile(hsd, gamma, mu_src, cov_src,
 def class_usage(gamma):
     """Mean responsibility share per class: (..., K) -> (K,), sums to 1.
     The histogram whose permutation across centers is the measured
-    seg-transfer failure mechanism (BASELINE.md r4)."""
+    seg-transfer failure mechanism (``scripts/seg_transfer_demo.py``)."""
     g = jnp.asarray(gamma, jnp.float32)
     u = jnp.mean(g.reshape(-1, g.shape[-1]), axis=0)
     return u / jnp.maximum(jnp.sum(u), 1e-12)
@@ -337,7 +337,7 @@ def nmi(rgb, mask):
 
 def nmi_sd_cv(nmi_values):
     """SD and CV of an NMI sample (``train_img_horo.py:865-885``); the
-    headline BASELINE.md numbers. Host-side numpy over gathered values."""
+    headline NMI numbers. Host-side numpy over gathered values."""
     v = np.asarray(nmi_values, np.float64)
     sd = float(v.std(ddof=0))
     cv = float(sd / max(v.mean(), 1e-12))

@@ -1,6 +1,6 @@
 """Stain-adversarial DANN models (flax) with gradient reversal.
 
-TPU-native re-design of ``dlmodels/stain_adversarial_learning`` (Keras/TF1):
+JAX re-design of ``dlmodels/stain_adversarial_learning`` (Keras/TF1):
 
 * gradient reversal: the TF1 ``gradient_override_map`` hack
   (``models_code/models_keras.py:138-180``) becomes a ``jax.custom_vjp``;

@@ -1,17 +1,17 @@
 """Invertible flow layers: ActNorm, logit transform, squeeze, Lipschitz nets.
 
-TPU-native building blocks for the residual-flow color model. The reference
+JAX building blocks for the residual-flow color model. The reference
 vendors these in an (un-checked-in) ``lib/`` package; behavior is
 reconstructed from its call sites (``dlmodels/color-information/
 train_img_horo.py:289,321,324-358,1089-1095``) and the Residual Flows paper
-its README cites. Design departures for TPU: spectral-norm power iteration is
+its README cites. Design departures: spectral-norm power iteration is
 a *fixed-length* ``lax.fori_loop`` (not a tolerance loop) so everything jits
 with static shapes, and its state (u, sigma) lives in a flax 'spectral'
 variable collection updated by an explicit ``update_lipschitz`` pass —
 mirroring the reference's post-step ``update_lipschitz(model)`` call.
 
 All layers expose ``forward(x) -> (y, logdet)`` and ``inverse(y) -> x``
-with NHWC layouts (channels-last: the TPU-friendly conv layout).
+with NHWC layouts (channels-last, the layout XLA's convolutions take natively).
 """
 
 from __future__ import annotations

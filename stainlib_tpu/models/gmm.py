@@ -1,6 +1,6 @@
 """Deep convolutional GMM head over flow latents (DCGMM-style).
 
-TPU-native counterpart of the missing ``lib.GMM.GMM_model`` (call sites
+JAX counterpart of the missing ``lib.GMM.GMM_model`` (call sites
 ``train_img_horo.py:363,492,703-705``): a small CNN on the HSD image
 produces per-pixel tissue-class responsibilities gamma (softmax over
 ``n_clusters``); each class k carries a learned mean mu_k and scale sigma_k

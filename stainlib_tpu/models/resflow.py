@@ -1,12 +1,12 @@
 """Residual flow: invertible ResNet blocks with tractable log-determinant.
 
-TPU-native counterpart of the color-information model's ``lib.resflow.
+JAX counterpart of the color-information model's ``lib.resflow.
 ResidualFlow`` (constructed at ``train_img_horo.py:324-358``; behavior per
 the Residual Flows paper cited in ``dlmodels/color-information/README.md``).
 Structure: LogitTransform init layer -> per-scale [ActNorm -> iResBlock]*k
 with squeeze between scales.
 
-Log-det design for TPU: the reference uses a *stochastic* power series with
+Log-det design: the reference uses a *stochastic* power series with
 geometric-distributed truncation and Neumann-series gradients (flags at
 ``train_img_horo.py:91-98``) — dynamic-length loops hostile to XLA. Here the
 Hutchinson power series has a FIXED truncation (``n_power_series``) computed

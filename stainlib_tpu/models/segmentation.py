@@ -11,9 +11,9 @@ so this module provides the framework's own minimal segmenter used by
 the synthetic multi-center cohort: train on the template center, deploy on
 color-shifted centers, compare mIoU raw vs normalized inputs.
 
-TPU notes: all convs are static-shape NHWC, pooling/upsampling by factors
-of two, so the whole step lowers to one fused XLA program; batches and
-spatial dims stay multiples of 8 to keep the MXU tiled.
+Layout notes: all convs are static-shape NHWC, pooling/upsampling by
+factors of two, so the whole step lowers to one XLA program; batches and
+spatial dims stay multiples of 8.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Distributed residual-flow + GMM trainer.
 
-TPU-native counterpart of ``dlmodels/color-information/train_img_horo.py``:
+JAX counterpart of ``dlmodels/color-information/train_img_horo.py``:
 the Horovod/NCCL machinery (hvd.init, DistributedOptimizer with Adasum,
 param broadcast, allreduce/allgather — ``:148-189,406-454,742-748,877``)
 becomes a mesh + shard_map data-parallel step with ``psum``ed gradients;

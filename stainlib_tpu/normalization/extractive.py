@@ -1,6 +1,6 @@
 """Extractive (Macenko / Vahadane) stain normalization, batched end to end.
 
-TPU-native re-design of ``ExtractiveStainNormalizer``
+Batched re-design of ``ExtractiveStainNormalizer``
 (``stainlib/normalization/normalizer.py:16-50``): fit stores the target stain
 matrix, plus the 99th-percentile concentration per stain; transform
 re-estimates the source stain matrix per image, solves the (exact) lasso for
@@ -113,90 +113,6 @@ def estimate_source(rgb, method: str = "macenko", regularizer: float = 0.01,
     lead = C.shape[:-3]
     max_c_src = percentile(C.reshape(lead + (-1, 2)), 99.0, axis=-2)
     return M_src, max_c_src
-
-
-def transform_tiled(params: ExtractiveParams, rgb, method: str = "macenko",
-                    regularizer: float = 0.01, block: int = 512,
-                    est_stride: int = 1, fused_fit: bool = True,
-                    interpret: bool = False, **extractor_kwargs):
-    """``transform`` for fields too large (or lane-unaligned) for the fully
-    fused per-tile kernels: estimate ONCE on the whole field (identical
-    statistics to :func:`transform` — the reference's per-image semantics,
-    ``normalizer.py:39-50``), then apply with the fixed-matrix fused kernel
-    (``kernels.macenko_fused.normalize_with_matrix_planar``) over
-    ``block``-square pieces. The apply is per-pixel, so cutting it into
-    blocks is exact; white padding squares up ragged edges and is cropped
-    back off. Output matches :func:`transform` within the fused kernels'
-    established one-uint8 step.
-
-    ``est_stride`` (> 1) estimates on a ``[::s, ::s]`` grid subsample of the
-    field instead of every pixel — whole-field estimation is ~85% of the
-    route's cost (BASELINE.md r5 decomposition) and a 1024^2 field at
-    stride 4 still feeds 65k pixels into the percentiles, the same count as
-    a full 256^2 tile. Same rationale as the fused kernels' ``fit_stride``
-    (the reference itself estimates on subsampled pixels,
-    ``vahadane_stain_extractor.py:19-43``); the apply stays per-pixel exact.
-
-    ``rgb``: (B, H, W, 3) or (H, W, 3) uint8; any H, W.
-    """
-    from stainlib_tpu.kernels.fused_stain import (
-        blockify, from_planar, to_planar, unblockify)
-    from stainlib_tpu.kernels.macenko_fused import normalize_with_matrix_planar
-
-    rgb = jnp.asarray(rgb)
-    single = rgb.ndim == 3
-    if single:
-        rgb = rgb[None]
-    B, H, W, _ = rgb.shape
-
-    est_in = (rgb if est_stride <= 1
-              else rgb[:, ::est_stride, ::est_stride, :])
-    npix = est_in.shape[1] * est_in.shape[2]
-    n_keep = npix // 1024 * 1024  # whole (8, 128) sublane tiles
-    if (fused_fit and method.lower() == "macenko" and not extractor_kwargs
-            and 8 * 1024 <= n_keep and npix <= 512 * 512):
-        # Estimation at fused-kernel cost: the functional streaming path
-        # measured 78-88% of this route's total (BASELINE.md r5), and the
-        # API's grid subsample is by construction one fused tile's worth
-        # of pixels (256^2..512^2) — VMEM-resident territory. Flatten the
-        # subsample into a lane-aligned plane (trimming < 1024 trailing
-        # pixels) and run the in-kernel Macenko fit.
-        from stainlib_tpu.kernels.macenko_fused import macenko_fit_planar
-        flat = est_in.reshape(B, npix, 3)[:, :n_keep]
-        planar = jnp.transpose(flat, (0, 2, 1)).reshape(
-            B, 3, n_keep // 128, 128)
-        M_src, max_c_src = macenko_fit_planar(
-            planar, regularizer=regularizer, interpret=interpret)
-    else:
-        M_src, max_c_src = estimate_source(est_in, method=method,
-                                           regularizer=regularizer,
-                                           **extractor_kwargs)
-    blocks, grid = blockify(rgb, block)
-    per_img = grid[0] * grid[1]
-    M_rep = jnp.repeat(M_src.reshape(B, 6), per_img, axis=0)
-    mc_rep = jnp.repeat(max_c_src.reshape(B, 2), per_img, axis=0)
-    out = normalize_with_matrix_planar(
-        to_planar(blocks), M_rep, mc_rep,
-        params.stain_matrix_target, params.max_c_target,
-        regularizer=regularizer, interpret=interpret)
-    out = unblockify(from_planar(out, block, block), grid, H, W)
-    return out[0] if single else out
-
-
-transform_tiled_jit = jax.jit(
-    transform_tiled,
-    static_argnames=("method", "regularizer", "block", "est_stride",
-                     "fused_fit", "interpret"))
-
-
-def tiled_est_stride(h: int, w: int, floor: int = 256 * 256) -> int:
-    """Largest grid stride that keeps >= ``floor`` pixels in the estimation
-    subsample (256^2 = one full fused tile's worth — the operating point
-    whose estimation fidelity is already validated, BASELINE.md r4/r5)."""
-    s = 1
-    while (h // (2 * s)) * (w // (2 * s)) >= floor:
-        s *= 2
-    return s
 
 
 def reconstruct(concentrations, stain_matrix):

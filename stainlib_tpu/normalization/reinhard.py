@@ -1,12 +1,12 @@
 """Reinhard LAB statistics transfer, batched and jit-compiled.
 
-TPU-native re-design of ``stainlib/normalization/normalizer.py:54-94``
+Batched JAX re-design of ``stainlib/normalization/normalizer.py:54-94``
 (E. Reinhard et al., 'Color transfer between images'): brightness
 standardization, per-channel LAB mean/std matching, optional background
 masking that paints non-tissue white. The reference's per-image
 OpenCV round trips (``lab_split``/``merge_back``/``cv.meanStdDev``,
 ``stain_utils.py:146-186``) become one fused float pipeline — uint8 in,
-uint8 out, everything in between stays in registers/VMEM under XLA fusion.
+uint8 out, everything in between fused by XLA into a few passes.
 """
 
 from __future__ import annotations

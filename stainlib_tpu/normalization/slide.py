@@ -1,27 +1,27 @@
-"""Whole-slide stain normalization: stream a WSI through the TPU, write a WSI.
+"""Whole-slide stain normalization: stream a WSI through the device, write a WSI.
 
 The reference's deployment story is the ``tester`` loop: iterate every tile
 of a slide through OpenSlide/PyVips decode and a per-patch CPU transform
 (``dlmodels/color-information/data_utils.py:1``; per-patch normalization
 ``stainlib/normalization/normalizer.py:39-50``). This module is the
-TPU-native end-to-end equivalent as a single call: threaded native TIFF
+batched end-to-end equivalent as a single call: threaded native TIFF
 decode (``data/native.py``), an overlapped host->device prefetch ring
-(``data/pipeline.py``), the fused Pallas normalization kernels on-device,
-and a tiled pyramidal TIFF written back out.
+(``data/pipeline.py``), one jitted normalization program per tile batch
+on-device, and a tiled pyramidal TIFF written back out.
 
 Estimation modes:
 
 * ``estimation='slide'`` (default): ONE stain matrix + maxC for the whole
   slide, fitted on a mosaic of rejection-sampled tissue tiles, then applied
-  to every tile with the fixed-matrix kernel
-  (``kernels.macenko_fused.normalize_with_matrix_planar``). A slide is one
-  staining event, so one estimate is the physically meaningful choice — and
-  adjacent tiles share one color map, so the output has no tile-boundary
-  seams. The per-tile percentile/bisection machinery drops out entirely;
-  the apply runs at the streaming-kernel rate.
+  to every tile with the fixed-matrix transform
+  (``extractive.transform_with_matrix``). A slide is one staining event, so
+  one estimate is the physically meaningful choice — and adjacent tiles
+  share one color map, so the output has no tile-boundary seams. The
+  per-tile percentile machinery drops out entirely; the apply is a pure
+  per-pixel pass.
 * ``estimation='tile'``: the reference's exact per-patch semantics
-  (re-estimate per tile, ``normalizer.py:45-48``) via the fully-fused
-  per-tile kernels.
+  (re-estimate per tile, ``normalizer.py:45-48``) via the functional
+  per-tile transform.
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ def fit_slide(slide_or_path, method: str = "macenko", level: int = 0,
     """Estimate one (stain matrix, maxC) for a whole slide from a mosaic of
     rejection-sampled tissue tiles (Macenko or Vahadane). The mosaic's
     pixel count (n_tiles * tile^2, default 2M) rides the streaming
-    count-bisection percentiles on TPU (``ops/percentile.py``)."""
+    count-bisection percentiles (``ops/percentile.py``)."""
     slide, owned = _open(slide_or_path)
     try:
         mosaic = _sample_mosaic(slide, level, tile, n_tiles, seed)
@@ -108,8 +108,7 @@ def fit_slide(slide_or_path, method: str = "macenko", level: int = 0,
             slide.close()
     from stainlib_tpu.normalization import extractive
 
-    # One jitted dispatch: the eager op-by-op fit pays per-op round-trip
-    # latency on remote-dispatch setups (measured 36 s vs ~1 s here).
+    # One jitted dispatch instead of an eager op-by-op fit.
     fit_fn = jax.jit(functools.partial(extractive.fit, method=method,
                                        regularizer=regularizer,
                                        **extractor_kwargs))
@@ -152,112 +151,50 @@ def _grid_coords(W: int, H: int, tile: int):
     return [(x, y) for y in ys for x in xs]
 
 
-def _use_fused(tile: int) -> bool:
-    return (jax.default_backend() == "tpu"
-            and (tile * tile) % 128 == 0 and tile * tile <= 512 * 512)
-
-
 def _make_apply(method: str, estimation: str, target_params, src,
-                tile: int, regularizer: float, interpret: bool,
-                mesh=None, mesh_axis: str = "data"):
-    """Returns (jitted (B, t, t, 3) uint8 -> (B, t, t, 3) uint8,
-    fused: bool) — ``fused`` reports whether the branch actually taken
-    runs a Pallas kernel (so callers surface a truthful signal).
+                regularizer: float, mesh=None, mesh_axis: str = "data"):
+    """Returns one jitted (B, t, t, 3) uint8 -> (B, t, t, 3) uint8 apply.
 
     With ``mesh`` set, the transform runs under ``shard_map`` with the
     batch axis sharded over ``mesh_axis``: every device runs the identical
-    (fused or functional) pipeline on its tile shard, collective-free —
-    the per-rank model execution of the reference's deployment
-    (``train_img_horo.py:541-594``) scaled over a device mesh. The batch
-    size must then be a multiple of the mesh's ``mesh_axis`` axis size."""
+    pipeline on its tile shard, collective-free — the per-rank model
+    execution of the reference's deployment (``train_img_horo.py:541-594``)
+    scaled over a device mesh. The batch size must then be a multiple of
+    the mesh's ``mesh_axis`` axis size."""
     from stainlib_tpu.normalization import extractive, reinhard
-
-    fused = interpret or _use_fused(tile)
-
-    def finish(core, is_fused):
-        # Every branch is ONE jitted dispatch per batch (planarize +
-        # kernel + deplanarize included): eager glue pays per-op
-        # round-trip latency on remote-dispatch setups.
-        if mesh is None:
-            return jax.jit(core), is_fused
-        from jax import shard_map
-        from jax.sharding import PartitionSpec as P
-
-        spec = P(mesh_axis, None, None, None)
-        return jax.jit(shard_map(core, mesh=mesh, in_specs=(spec,),
-                                 out_specs=spec, check_vma=False)), is_fused
 
     if method == "reinhard":
         if estimation == "slide":
-            # Slide-level source stats: a pure per-pixel affine; the jitted
-            # functional path is already one fused XLA program (no
-            # percentile work remains for a Pallas kernel to win on).
+            # Slide-level source stats: a pure per-pixel affine.
             def core(batch):
                 return reinhard.transform(
                     target_params, batch, source_stats=src.stats,
                     brightness_divisor=src.brightness_divisor)
-            return finish(core, False)
-
-        # estimation == 'tile': the reference's per-image source stats
-        # (``normalizer.py:70-83``) — fused kernel where available.
-        if fused:
-            from stainlib_tpu.kernels.fused_stain import from_planar, to_planar
-            from stainlib_tpu.kernels.reinhard_fused import (
-                reinhard_normalize_planar)
-
+        else:
+            # The reference's per-image source stats
+            # (``normalizer.py:70-83``).
             def core(batch):
-                out = reinhard_normalize_planar(
-                    to_planar(batch), target_params.means,
-                    target_params.stds, interpret=interpret)
-                return from_planar(out, tile, tile)
-            return finish(core, True)
-
-        def core(batch):
-            return reinhard.transform(target_params, batch)
-        return finish(core, False)
-    if estimation == "slide":
-        if fused:
-            from stainlib_tpu.kernels.fused_stain import from_planar, to_planar
-            from stainlib_tpu.kernels.macenko_fused import (
-                normalize_with_matrix_planar)
-
-            def core(batch):
-                out = normalize_with_matrix_planar(
-                    to_planar(batch),
-                    src.stain_matrix, src.max_c,
-                    target_params.stain_matrix_target,
-                    target_params.max_c_target,
-                    regularizer=regularizer, interpret=interpret)
-                return from_planar(out, tile, tile)
-            return finish(core, True)
-
+                return reinhard.transform(target_params, batch)
+    elif estimation == "slide":
         def core(batch):
             return extractive.transform_with_matrix(
                 batch, src.stain_matrix, src.max_c,
                 target_params, regularizer=regularizer)
-        return finish(core, False)
-
-    # estimation == 'tile': the reference's exact per-patch semantics.
-    if fused:
-        from stainlib_tpu.kernels.fused_stain import from_planar, to_planar
-        if method == "macenko":
-            from stainlib_tpu.kernels.macenko_fused import (
-                macenko_normalize_planar as kern)
-        else:
-            from stainlib_tpu.kernels.vahadane_fused import (
-                vahadane_normalize_planar as kern)
-
+    else:
+        # estimation == 'tile': the reference's exact per-patch semantics.
         def core(batch):
-            out = kern(to_planar(batch),
-                       target_params.stain_matrix_target,
-                       target_params.max_c_target, interpret=interpret)
-            return from_planar(out, tile, tile)
-        return finish(core, True)
+            return extractive.transform(target_params, batch, method=method,
+                                        regularizer=regularizer)
 
-    def core(batch):
-        return extractive.transform(target_params, batch, method=method,
-                                    regularizer=regularizer)
-    return finish(core, False)
+    # One jitted dispatch per batch.
+    if mesh is None:
+        return jax.jit(core)
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    spec = P(mesh_axis, None, None, None)
+    return jax.jit(shard_map(core, mesh=mesh, in_specs=(spec,),
+                             out_specs=spec, check_vma=False))
 
 
 def build_pyramid(level0: np.ndarray, min_dim: int = 512):
@@ -296,9 +233,8 @@ def _stream_canvas(slide, level: int, tile: int, batch: int, W: int, H: int,
     n_batches = math.ceil(len(coords) / batch)
     canvas = _alloc_u8((H, W, 3))
     read_regions = getattr(slide, "read_regions", None)
-    # Coordinates stay host-side (the device never needs them; shipping
-    # them through the prefetcher costs a device round-trip per batch on
-    # remote-dispatch setups). The trailing partial batch is padded by
+    # Coordinates stay host-side (the device never needs them). The
+    # trailing partial batch is padded by
     # repeating its last coordinate so every dispatch shares ONE jitted
     # shape (no second compile); the writer crops via the unpadded chunk.
     chunks = [coords[i * batch : (i + 1) * batch] for i in range(n_batches)]
@@ -345,7 +281,6 @@ def normalize_slide(
     prefetch_depth: int = 3,
     prefetch_workers: int = 2,
     progress: Optional[Callable[[int, int], None]] = None,
-    interpret: bool = False,
     mesh=None,
     mesh_axis: str = "data",
 ) -> dict:
@@ -422,9 +357,8 @@ def normalize_slide(
             sharding = NamedSharding(
                 mesh, PartitionSpec(mesh_axis, None, None, None))
 
-        apply_fn, fused = _make_apply(method, estimation, target_params, src,
-                                      tile, regularizer, interpret,
-                                      mesh=mesh, mesh_axis=mesh_axis)
+        apply_fn = _make_apply(method, estimation, target_params, src,
+                               regularizer, mesh=mesh, mesh_axis=mesh_axis)
 
         canvas, n_tiles = _stream_canvas(
             slide, level, tile, batch, W, H,
@@ -441,7 +375,6 @@ def normalize_slide(
             "levels": len(levels),
             "method": method,
             "estimation": estimation,
-            "fused": fused,
         }
     finally:
         slide.close()
@@ -487,7 +420,8 @@ def flow_normalize_slide(
 
     ``class_match``: rank-match the slide's GMM classes to the template's by
     usage share before the transfer (robust to the class permutation
-    measured on out-of-distribution centers, BASELINE.md r4); off = the
+    measured on out-of-distribution centers by
+    ``scripts/seg_transfer_demo.py``); off = the
     reference's unconditional k -> k mapping.
 
     ``transfer``: 'diag' = the reference's per-channel (mu, sigma) affine
@@ -496,10 +430,10 @@ def flow_normalize_slide(
     template's chroma rotation); 'quantile' = per-class quantile matching
     (EXTENSION — ``color_eval.image_dist_transform_quantile``, closes the
     measured non-affine within-class shifts; both measured on the synthetic
-    cohort in BASELINE.md r4); 'rgb-quantile' = the same matching on the
+    cohort by ``scripts/seg_transfer_demo.py``); 'rgb-quantile' = the same matching on the
     float-RGB rendering, the space where scanner tone curves are
-    per-channel monotone and exactly invertible (EXTENSION, BASELINE.md
-    r5 "Acquisition cohort").
+    per-channel monotone and exactly invertible (EXTENSION; the
+    acquisition cohort of ``scripts/seg_transfer_demo.py``).
     """
     import jax  # noqa: F401  (jitted closures below)
 
@@ -541,7 +475,8 @@ def flow_normalize_slide(
     # Deploy with the EMA weights by default — the reference's validation
     # swap (``--ema-val``, ``train_img_horo.py:668-669``). Measured r3: at
     # the converged 1000-step capacity checkpoint the EMA weights transfer
-    # at NMI sd 0.0583 vs 0.0753 for the raw weights (BASELINE.md).
+    # at NMI sd 0.0583 vs 0.0753 for the raw weights
+    # (``scripts/train_flow_capacity.py --ema-val``).
     params = state.ema.params if use_ema else state.params
     spectral = state.spectral
 

@@ -31,8 +31,9 @@ from jax import lax
 def _mm(a, b):
     """Small constant-matrix contraction at full float32 precision.
 
-    TPU matmuls default to bf16 inputs; at 3x3 these conversions are free on
-    the VPU and the extra bits are required for the delta-E < 1.0 target.
+    Without it XLA may run a float32 product in reduced precision (TF32 on
+    NVIDIA GPUs); at 3x3 the full-precision product costs nothing and the
+    extra bits are required for the delta-E < 1.0 target.
     """
     return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 

@@ -1,7 +1,7 @@
 """Perceptual color difference (delta-E) — the fidelity metric.
 
-BASELINE.json's north star bounds output error as "delta-E < 1.0 vs CPU
-stainlib"; this is the public, batched harness for it (SURVEY.md section 7
+The fidelity contract bounds output error as "mean delta-E < 1.0 vs the CPU
+reference"; this is the public, batched harness for it (SURVEY.md section 7
 step 10): CIE76 (Euclidean CIELAB distance) on our OpenCV-parity LAB
 transform, plus the mean/percentile reductions the fidelity tests use.
 """

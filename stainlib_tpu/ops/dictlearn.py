@@ -15,8 +15,7 @@ batch alternating minimization that is jit-compiled end to end:
     rather than a dynamic gather.
 
 Deterministic initialization (Ruifrok-Johnston H&E vectors) + a fixed
-iteration count give bitwise-stable stain matrices across runs (BASELINE.json
-north star). SPAMS' online algorithm converges to a local optimum of the same
+iteration count give bitwise-stable stain matrices across runs. SPAMS' online algorithm converges to a local optimum of the same
 objective; end-to-end fidelity is validated as delta-E on reconstructed
 images, not bitwise dictionary equality (SURVEY.md section 7 'hard parts').
 """

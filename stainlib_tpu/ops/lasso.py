@@ -9,7 +9,7 @@ with D = stain_matrix.T (3 x 2) — at ``stainlib/utils/stain_utils.py:69-78``,
 via the native C++ LARS solver. For K = 2 stains this QP has a tiny exact
 closed form: enumerate the 2^2 active sets and pick the (unique, since
 G = D^T D is PD for non-parallel stains) KKT-satisfying candidate. That makes
-the hot per-pixel solve a handful of fused VPU ops — exact (it is the same
+the hot per-pixel solve a handful of fused elementwise ops — exact (it is the same
 global optimum LARS finds), branch-free, bitwise deterministic, and trivially
 batched over all pixels of all tiles, instead of an iterative native solver.
 

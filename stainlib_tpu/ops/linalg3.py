@@ -4,8 +4,8 @@ Replaces ``np.linalg.eigh`` on the 3x3 OD covariance in the Macenko extractor
 (``stainlib/extraction/macenko_stain_extractor.py:22``). A direct trigonometric
 solve (Smith 1961) + cross-product eigenvectors is exact for this fixed tiny
 size, vmaps trivially over tile batches, avoids the general eigensolver's
-iteration on TPU, and is deterministic — a requirement for the "bitwise-stable
-stain matrices" target (BASELINE.json north star).
+iteration, and is deterministic — a requirement for bitwise-stable stain
+matrices from run to run.
 """
 
 from __future__ import annotations

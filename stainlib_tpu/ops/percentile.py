@@ -4,7 +4,7 @@ The reference calls ``np.percentile`` at three sites (Macenko angle bounds
 ``macenko_stain_extractor.py:33-35``, concentration max ``normalizer.py:36,46``,
 brightness/luminosity standardization ``stain_utils.py:64,193``) and computes
 masked statistics by boolean fancy-indexing (``OD[tissue_mask]``), which is a
-dynamic shape. On TPU these become sort-based percentiles with masks folded in
+dynamic shape. Here these become sort-based percentiles with masks folded in
 as +inf sentinels, keeping every shape static.
 
 All functions use NumPy's default 'linear' interpolation so results agree with
@@ -42,7 +42,7 @@ def _percentile_bisect(values, mask, q, n_rounds=_BISECT_ROUNDS,
     data values (max-in-bracket / min-above-bracket), so agreement with the
     sort path is limited only by f32 interpolation arithmetic. ``q`` may be
     a scalar or an (m,) vector — all q's share every traversal. O(n_rounds)
-    full passes, no sort, no N log N — the TPU-friendly form for large
+    full passes, no sort, no N log N — the bandwidth-bound form for large
     fields.
     """
     big = jnp.float32(_BIG)

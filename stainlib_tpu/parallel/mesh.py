@@ -2,11 +2,13 @@
 
 The reference launches N ranks with ``mpirun`` over SLURM and communicates
 via Horovod/NCCL (``dlmodels/color-information/run.sh:20-63``,
-``train_img_horo.py:148-173,406-454``). TPU-natively this is all mesh +
-collectives: ``jax.distributed.initialize()`` for multi-host bootstrap and a
-``jax.sharding.Mesh`` whose *outermost* axis maps to DCN (across slices) and
-inner axes to ICI, so data-parallel gradient reductions ride the fast fabric
-(SURVEY.md section 2.5).
+``train_img_horo.py:148-173,406-454``). In JAX this is all mesh +
+collectives: ``jax.distributed.initialize()`` for multi-host bootstrap
+(one process per host, seeing all of that host's GPUs) and a
+``jax.sharding.Mesh`` whose axes follow the algorithm alone. The GPUs of one
+host are joined all to all by NVLink, so no device order within a host is
+faster than another; XLA lowers the collectives to NCCL (SURVEY.md
+section 2.5).
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """Multi-host bootstrap (replaces ``hvd.init()``/mpirun env wiring).
 
     No-op when called with no arguments on a single host. Pass coordinator
-    address + process topology explicitly, or ``auto=True`` on a TPU pod to
-    let ``jax.distributed.initialize()`` read the runtime's topology
-    metadata (any partial argument set is forwarded as given).
+    address + process topology explicitly (``localhost:<port>`` for
+    several processes on one host), or ``auto=True`` under a cluster
+    manager that ``jax.distributed.initialize()`` can read the topology
+    from (any partial argument set is forwarded as given).
     """
     explicit = (coordinator_address is not None or process_id is not None
                 or (num_processes is not None and num_processes > 1))
@@ -42,8 +45,10 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 def make_mesh(n_devices: Optional[int] = None, **axis_sizes: int) -> Mesh:
     """Build a named mesh over the first ``n_devices`` devices.
 
-    ``axis_sizes`` are ordered: the FIRST axis should be the slowest
-    (DCN / multi-host) one. Example: ``make_mesh(8, data=2, tiles=4)``.
+    ``axis_sizes`` are ordered and laid over ``jax.devices()`` in that
+    order; across hosts put the cross-host axis FIRST, so that it is the
+    one that leaves the host's NVLink domain. Example:
+    ``make_mesh(8, data=2, tiles=4)``.
     Default: one 'data' axis spanning everything — the reference's pure
     data-parallel Horovod layout.
     """

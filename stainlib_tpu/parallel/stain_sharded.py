@@ -3,12 +3,12 @@
 The reference streams 100k+ tiles per WSI through per-image CPU calls
 (``data_utils.py:1``); the scaling axes here are (SURVEY.md section 2.5):
 
-  * ``data``: tile batches sharded across chips/hosts — each chip runs the
-    identical fused normalization on its shard, no communication at all
-    (stain normalization is embarrassingly parallel over tiles);
+  * ``data``: tile batches sharded across devices/hosts — each device runs
+    the identical normalization program on its shard, no communication at
+    all (stain normalization is embarrassingly parallel over tiles);
   * ``pixel``: the sequence-parallel analogue — the flattened pixel axis of
-    a huge solve sharded across chips (useful when a single slide-level
-    solve exceeds one chip's memory), again collective-free since the
+    a huge solve sharded across devices (useful when a single slide-level
+    solve exceeds one device's memory), again collective-free since the
     closed-form lasso is per-pixel.
 """
 
@@ -26,50 +26,18 @@ from stainlib_tpu.ops.lasso import nonneg_lasso_k2
 
 
 def normalize_batch_sharded(mesh: Mesh, target_rgb, batch_rgb,
-                            method: str = "macenko", axis: str = "data",
-                            fused: bool = False):
+                            method: str = "macenko", axis: str = "data"):
     """Fit on the (replicated) target, transform a 'data'-sharded tile batch.
 
     The 'data' axis size must divide the batch's leading axis. Returns uint8
-    tiles with the same sharding as the input.
-
-    ``fused=True`` runs the flagship Pallas kernels on each shard under
-    ``shard_map`` (the per-rank model execution of the reference,
-    ``train_img_horo.py:541-594``): every device runs the single-kernel
-    Macenko / Vahadane-dictionary pipeline on its tiles, collective-free.
-    On non-TPU meshes the kernels execute in interpret mode, so the same
-    code path is exercised by the CPU-mesh dryrun/tests.
+    tiles with the same sharding as the input. Every tile's transform is
+    independent of the others, so the result equals the single-device
+    ``extractive.transform`` bit for bit.
     """
     params = extractive.fit(target_rgb, method=method)
     batch_sharded = jax.device_put(
         batch_rgb, NamedSharding(mesh, P(axis, None, None, None))
     )
-    if fused:
-        from stainlib_tpu.kernels.fused_stain import from_planar, to_planar
-        from stainlib_tpu.kernels.macenko_fused import macenko_normalize_planar
-        from stainlib_tpu.kernels.vahadane_fused import vahadane_normalize_planar
-
-        interp = jax.default_backend() != "tpu"
-        H, W = batch_rgb.shape[-3], batch_rgb.shape[-2]
-
-        def run_shard(tgt_m, tgt_maxc, shard):
-            planar = to_planar(shard)
-            if method.lower() == "macenko":
-                out = macenko_normalize_planar(planar, tgt_m, tgt_maxc,
-                                               interpret=interp)
-            else:
-                out = vahadane_normalize_planar(planar, tgt_m, tgt_maxc,
-                                                interpret=interp)
-            return from_planar(out, H, W)
-
-        fn = shard_map(
-            run_shard, mesh=mesh,
-            in_specs=(P(), P(), P(axis, None, None, None)),
-            out_specs=P(axis, None, None, None),
-            check_vma=False,
-        )
-        return jax.jit(fn)(params.stain_matrix_target, params.max_c_target,
-                           batch_sharded)
     params = jax.device_put(params, NamedSharding(mesh, P()))
 
     @jax.jit

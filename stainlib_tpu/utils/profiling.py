@@ -2,7 +2,7 @@
 
 The reference's observability is wall-clock prints (SURVEY.md section 5);
 here the same counters exist (:mod:`stainlib_tpu.utils.meters`) plus proper
-device traces via ``jax.profiler`` — the TPU-native upgrade.
+device traces via ``jax.profiler`` — the device-side upgrade.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Stall watchdog: failure *detection* for long training runs.
 
 The reference has no failure detection at all — a hung rank silently stalls
-the whole mpirun job (SURVEY.md section 5). This is the cheap TPU-native
+the whole mpirun job (SURVEY.md section 5). This is the cheap JAX
 upgrade: a daemon thread that fires a callback (default: log loudly) when
 no heartbeat arrives within the timeout, e.g. when a device step deadlocks
 or the input pipeline starves. Recovery remains checkpoint-restart.

@@ -96,18 +96,3 @@ def test_vahadane_extractor_and_normalizer_class():
     norm.fit(he_patch(48, 48, seed=57))
     out = norm.transform(img)
     assert out.shape == img.shape and out.dtype == np.uint8
-
-
-def test_fast_fit_kwargs_gating():
-    """The fused route's estimation-subsample fast path engages only at
-    >=256^2, where its fidelity is proven max-1-u8 (BASELINE.md r4 probe
-    grid); smaller tiles keep the bit-exact full-resolution fit."""
-    from stainlib_tpu.api import _fast_fit_kwargs
-
-    small = np.zeros((128, 128, 3), np.uint8)
-    big = np.zeros((256, 256, 3), np.uint8)
-    assert _fast_fit_kwargs(small, "macenko") == {}
-    assert _fast_fit_kwargs(small, "vahadane") == {}
-    assert _fast_fit_kwargs(big, "macenko") == dict(fit_stride=2, n_bisect=10)
-    assert _fast_fit_kwargs(big, "vahadane") == dict(fit_stride=2, num_iters=8,
-                                                     n_bisect=10)

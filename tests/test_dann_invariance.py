@@ -26,7 +26,7 @@ Protocol notes (both mirror the reference):
   exposes the strength as ``lambda_m``.
 
 CI scale (39x39); full-size numbers live in
-``scripts/dann_invariance_demo.py`` + BASELINE.md.
+``scripts/dann_invariance_demo.py``.
 """
 
 import numpy as np

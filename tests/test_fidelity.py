@@ -1,7 +1,7 @@
-"""North-star fidelity: fused-kernel output vs the independent CPU golden.
+"""Fidelity contract: the jnp path's output vs the independent CPU golden.
 
-BASELINE.json: "delta-E < 1.0 vs CPU stainlib on identical inputs". The CPU
-golden here recomputes the whole Macenko pipeline with numpy/OpenCV/scipy
+The contract: "mean delta-E < 1.0 vs CPU stainlib on identical inputs". The
+CPU golden here recomputes the whole pipeline with numpy/OpenCV/scipy
 (tests/cpu_reference.py) — no shared code with the device path.
 """
 
@@ -9,8 +9,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stainlib_tpu.kernels.macenko_fused import macenko_normalize
-from stainlib_tpu.kernels.reinhard_fused import reinhard_normalize
 from stainlib_tpu.normalization import extractive, reinhard
 from tests import cpu_reference as ref
 from tests.synth import he_patch
@@ -22,11 +20,7 @@ def test_fused_macenko_delta_e_vs_cpu_golden():
     src = he_patch(48, 64, seed=121)
 
     params = extractive.fit(jnp.asarray(target), method="macenko")
-    got = np.asarray(
-        macenko_normalize(jnp.asarray(src)[None],
-                          params.stain_matrix_target,
-                          params.max_c_target, interpret=True)[0]
-    )
+    got = np.asarray(extractive.transform_jit(params, jnp.asarray(src)))
 
     Mt = ref.macenko_stain_matrix(target)
     Ct = ref.nonneg_lasso(ref.rgb_to_od(target).reshape(-1, 3), Mt)
@@ -44,10 +38,7 @@ def test_fused_reinhard_delta_e_vs_cpu_golden():
     target = he_patch(64, 64, seed=122)
     src = he_patch(64, 64, seed=123)
     params = reinhard.fit(jnp.asarray(target))
-    got = np.asarray(
-        reinhard_normalize(jnp.asarray(src)[None], params.means,
-                           params.stds, interpret=True)[0]
-    )
+    got = np.asarray(reinhard.transform_jit(params, jnp.asarray(src)))
     t_means, t_stds = ref.reinhard_fit(target)
     want = ref.reinhard_transform(src, t_means, t_stds)
     de = ref.delta_e(got, want)
@@ -56,20 +47,15 @@ def test_fused_reinhard_delta_e_vs_cpu_golden():
 
 @pytest.mark.slow
 def test_fused_vahadane_delta_e_vs_cpu_golden():
-    """Independent Vahadane anchor (VERDICT r1 item 3): the fused path vs a
-    sklearn positive dictionary learner + scipy-QP lasso golden that shares
-    no code with the device solver (vahadane_stain_extractor.py:19-43)."""
-    from stainlib_tpu.kernels.vahadane_fused import vahadane_normalize
-
+    """Independent Vahadane anchor: the jnp path vs a sklearn positive
+    dictionary learner + scipy-QP lasso golden that shares no code with the
+    device solver (vahadane_stain_extractor.py:19-43)."""
     target = he_patch(48, 64, seed=124)
     src = he_patch(48, 64, seed=125)
 
     params = extractive.fit(jnp.asarray(target), method="vahadane")
-    got = np.asarray(
-        vahadane_normalize(jnp.asarray(src)[None],
-                           params.stain_matrix_target,
-                           params.max_c_target, interpret=True)[0]
-    )
+    got = np.asarray(extractive.transform_jit(params, jnp.asarray(src),
+                                              method="vahadane"))
 
     Mt = ref.vahadane_stain_matrix(target)
     Ct = ref.nonneg_lasso(ref.rgb_to_od(target).reshape(-1, 3), Mt)

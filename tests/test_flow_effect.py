@@ -1,4 +1,4 @@
-"""The flow+GMM normalizer must actually NORMALIZE (VERDICT r1 item 5).
+"""The flow+GMM normalizer must actually NORMALIZE.
 
 Synthetic multi-center cohort with a deliberately large inter-center stain
 shift (raw NMI SD ~0.11-0.14, vs the published normalized level 0.038 —

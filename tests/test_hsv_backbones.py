@@ -103,7 +103,7 @@ def test_mobilenet_dann_trains_three_phases():
 def test_stain_domain_task_semantics():
     """stain_domain_task: hue-recipe domains at matched brightness, stripe
     orientation in the H-concentration field (the capacity-DANN cue;
-    BASELINE.md r3 boundary measurement motivates it)."""
+    scripts/train_dann_capacity.py motivates it)."""
     from stainlib_tpu.data.synthetic import stain_domain_task
 
     X, y, d = stain_domain_task(8, seed=0, size=32, correlation=0.5)

@@ -85,13 +85,6 @@ def test_tissue_mask_hsv_finds_tissue(slide_path):
     assert inside > 0.8 and outside < 0.05, (inside, outside)
 
 
-def test_pack_planar_matches_transpose():
-    batch = np.stack([he_patch(32, 32, seed=s) for s in range(3)])
-    planar = native.pack_planar(batch)
-    want = batch.transpose(0, 3, 1, 2).reshape(3, 3, 32 * 32 // 128, 128)
-    np.testing.assert_array_equal(planar, want)
-
-
 def test_numpy_fallback_paths(slide_path, monkeypatch):
     path, lv0, _ = slide_path
     monkeypatch.setattr(native, "get_lib", lambda: None)
@@ -102,9 +95,6 @@ def test_numpy_fallback_paths(slide_path, monkeypatch):
     tiles, coords = s.sample_tiles(0, tile=32, n=4, seed=5)
     ok = coords[:, 0] >= 0
     assert ok.any()
-    batch = np.stack([he_patch(16, 16, seed=9)] * 2)
-    planar = native.pack_planar(batch)
-    assert planar.shape == (2, 3, 2, 128)
 
 
 def test_level_out_of_range_raises(slide_path):

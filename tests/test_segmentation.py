@@ -73,8 +73,7 @@ def test_normalization_closes_cross_center_miou_gap(tmp_path):
 @pytest.mark.slow
 def test_seg_demo_flow_center_scope_class_match(tmp_path):
     """--class-match --class-match-scope center: the flow condition pools
-    usage per center (ONE perm, the slide-level granularity — VERDICT r4
-    item 4) and the demo runs end to end with the quantile transfer."""
+    usage per center (ONE perm, the slide-level granularity) and the demo runs end to end with the quantile transfer."""
     import sys
 
     sys.path.insert(0, "scripts")

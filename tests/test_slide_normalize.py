@@ -5,6 +5,7 @@ slide->slide driver (the reference's ``tester`` deployment loop,
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from stainlib_tpu.data import native
@@ -34,27 +35,48 @@ def test_transform_with_matrix_matches_per_image_path():
     assert (got == want).all()
 
 
-def test_fixed_matrix_kernel_matches_functional():
-    """Fused ``normalize_with_matrix_planar`` (interpret) vs the functional
-    fixed-matrix transform."""
-    from stainlib_tpu.kernels.fused_stain import from_planar, to_planar
-    from stainlib_tpu.kernels.macenko_fused import normalize_with_matrix_planar
+@pytest.mark.parametrize("method,estimation", [
+    ("macenko", "slide"), ("macenko", "tile"), ("vahadane", "tile"),
+    ("reinhard", "slide"), ("reinhard", "tile")])
+def test_make_apply_routes_to_functional(method, estimation):
+    """Each (method, estimation) apply is the functional transform it
+    names, bit for bit."""
+    from stainlib_tpu.normalization import reinhard
+    from stainlib_tpu.normalization.slide import (
+        SlideReinhardParams, SlideStainParams, _make_apply)
 
-    target = he_patch(32, 64, seed=20, stain=TGT_STAIN)
-    batch = he_batch(3, 32, 64, seed=21)
-    params = extractive.fit(jnp.asarray(target), method="macenko")
-    src = extractive.fit(jnp.asarray(batch[0]), method="macenko")
-    want = np.asarray(extractive.transform_with_matrix(
-        jnp.asarray(batch), src.stain_matrix_target, src.max_c_target,
-        params))
-    out = normalize_with_matrix_planar(
-        to_planar(jnp.asarray(batch)), src.stain_matrix_target,
-        src.max_c_target, params.stain_matrix_target, params.max_c_target,
-        interpret=True)
-    got = np.asarray(from_planar(out, 32, 64))
-    diff = np.abs(got.astype(int) - want.astype(int))
-    assert (diff <= 1).mean() > 0.995, (diff.max(), (diff > 1).mean())
-    assert diff.max() <= 3
+    target = jnp.asarray(he_patch(32, 64, seed=20, stain=TGT_STAIN))
+    batch = jnp.asarray(he_batch(3, 32, 64, seed=21))
+    src = None
+    if method == "reinhard":
+        params = reinhard.fit(target)
+        if estimation == "slide":
+            src = SlideReinhardParams(stats=reinhard.fit(batch[0]),
+                                      brightness_divisor=230.0)
+
+            def direct(x):
+                return reinhard.transform(params, x, source_stats=src.stats,
+                                          brightness_divisor=230.0)
+        else:
+            def direct(x):
+                return reinhard.transform(params, x)
+    else:
+        params = extractive.fit(target, method=method)
+        if estimation == "slide":
+            s = extractive.fit(batch[0], method=method)
+            src = SlideStainParams(stain_matrix=s.stain_matrix_target,
+                                   max_c=s.max_c_target)
+
+            def direct(x):
+                return extractive.transform_with_matrix(
+                    x, src.stain_matrix, src.max_c, params)
+        else:
+            def direct(x):
+                return extractive.transform(params, x, method=method)
+    want = jax.jit(direct)(batch)
+    apply_fn = _make_apply(method, estimation, params, src, 0.01)
+    np.testing.assert_array_equal(np.asarray(apply_fn(batch)),
+                                  np.asarray(want))
 
 
 def _tissue_slide(tmp_path, h=520, w=600, seed=0):

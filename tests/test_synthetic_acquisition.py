@@ -2,7 +2,7 @@
 
 The r4 analysis pinned the flow-vs-Macenko seg-transfer residual to the
 synthetic cohort being Beer-Lambert BY CONSTRUCTION — the exact model class
-Macenko inverts (BASELINE.md r4 "Why the gap cannot close"). The acquisition
+Macenko inverts (near-oracle in scripts/seg_transfer_demo.py). The acquisition
 cohort (`synthetic._ACQ_CENTERS`) models the regime the reference claims for
 the learned flow — per-center scanner tone curves, chroma-dependent sensor
 saturation, defocus, noise, JPEG (``dlmodels/color-information/README.md``:

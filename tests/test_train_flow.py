@@ -108,7 +108,7 @@ def test_encode_and_template_transfer_pipeline():
 
 def test_class_match_undoes_permutation():
     """Usage-rank matching recovers the k->k transfer under a synthetic GMM
-    class relabelling — the measured OOD failure mechanism (BASELINE.md r4:
+    class relabelling — the measured OOD failure mechanism (scripts/seg_transfer_demo.py:
     the dominant tissue lands on a different cluster index on shifted
     centers, so the reference's unconditional k->k map recolors it with
     minority-class template statistics)."""
@@ -376,7 +376,7 @@ def test_quantile_transfer_empty_class_shrinks_to_global():
     curve (prior shrinkage) instead of unsupported noise — the measured
     template-empty-class failure of the reference's (mu, sigma) transfer
     (shifted centers route ~9% of pixels through a class the template
-    never uses, BASELINE.md r4)."""
+    never uses, scripts/seg_transfer_demo.py)."""
     rng = np.random.default_rng(4)
     K = 3
     gamma = np.zeros((1, 16, 16, K), np.float32)
